@@ -5,19 +5,20 @@ Prints ONE JSON line:
 
 Primary metric: RS(255,223) decode throughput (2 symbol errors per
 codeword — the README example config, BASELINE.json config #1/#2) in
-codewords/s on one chip.  vs_baseline is the speedup over the reference
+codewords/s on one GPU.  vs_baseline is the speedup over the reference
 C library (compiled from /root/reference, scalar path) measured on this
 host — the reference publishes no numbers of its own (BASELINE.md).
 
-Methodology note (applies to every vs-reference ratio printed here and
-to the Speedup column in BASELINE.md): the TPU figures are steady-state
-PIPELINED throughput at large batch (dispatch all iterations, block
-once — the production streaming pattern), while the reference-C figures
+Methodology note (applies to every vs-reference ratio printed here):
+the device figures are steady-state PIPELINED throughput at large batch
+(dispatch all iterations, block once), while the reference-C figures
 are synchronous single-core per-call timing, since the C library
 processes one codeword per call and has no pipeline to fill.
 
 Secondary metrics (LDPC BP Mbit/s, RS encode, BCH, erasure decode) are
-printed to stderr as JSON lines prefixed with '#'.
+printed to stderr as JSON lines prefixed with '#'.  Without a GPU the
+bench refuses to run, except in smoke mode (POPORON_BENCH_SMOKE=1), which
+pins the CPU and times nothing meaningful.
 """
 
 from __future__ import annotations
@@ -29,10 +30,9 @@ import time
 import numpy as np
 
 # Batch sizes: the per-iteration fixed costs (BM's 32 serial steps,
-# BP's while_loop bookkeeping) are latency-bound on this runtime, so
-# throughput keeps rising with batch (RS: 1.47M cw/s at 16k -> 2.30M
-# at 131k).  131072 codewords of RS(255,223) is ~33MB of input — small
-# for HBM, and the scale BASELINE config #4 asks for (100k).
+# BP's while_loop bookkeeping) amortize over the batch.  131072
+# codewords of RS(255,223) is ~33MB of input — small for device
+# memory, and the scale BASELINE config #4 asks for (100k).
 BATCH = 131072
 LDPC_BATCH = 131072
 
@@ -40,7 +40,7 @@ LDPC_BATCH = 131072
 # path in seconds, producing no meaningful throughput numbers.
 import os
 
-SMOKE = os.environ.get("PPTPU_BENCH_SMOKE", "") == "1"
+SMOKE = os.environ.get("POPORON_BENCH_SMOKE", "") == "1"
 if SMOKE:
     BATCH = 1024
     LDPC_BATCH = 2048
@@ -53,9 +53,7 @@ def log(obj):
 def time_fn(fn, *args, warmup=2, iters=5):
     """Steady-state throughput timing: dispatch all iterations
     back-to-back (the device pipeline stays full, as in a production
-    streaming deployment) and block once at the end.  Blocking per call
-    would add ~20ms of runtime host-sync latency to every measurement —
-    a property of the host link, not of the codec."""
+    streaming deployment) and block once at the end."""
     import jax
 
     for _ in range(warmup):
@@ -132,17 +130,17 @@ def main():
 
     if SMOKE:
         jax.config.update("jax_platforms", "cpu")
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
-    except Exception:
-        pass
 
-    import libpoporon_tpu as pp
+    import libpoporon_jax as pp
+    from libpoporon_jax.utils.compile_cache import enable_compile_cache
 
+    enable_compile_cache()
     dev = jax.devices()[0]
-    log({"device": str(dev), "platform": dev.platform})
+    if dev.platform != "gpu" and not SMOKE:
+        sys.exit(f"bench.py needs a GPU; found {dev.platform} "
+                 f"({dev.device_kind}). POPORON_BENCH_SMOKE=1 runs it on the CPU.")
+    log({"device": str(dev), "platform": dev.platform,
+         "device_kind": dev.device_kind, "device_count": len(jax.devices())})
 
     rng = np.random.default_rng(0)
 
@@ -159,18 +157,11 @@ def main():
 
     dj = jax.device_put(corrupt)
     pj = jax.device_put(parity)
-    # rs.decode is the facade's dispatch: plain path -> fused Pallas
-    # kernel on TPU (models/rs_pallas.py), XLA elsewhere
     dt = time_fn(lambda a, b: rs.decode(a, b), dj, pj)
     rs_dec_cws = BATCH / dt
     ok = np.asarray(rs.decode(dj, pj)[0])
     assert ok.all(), "bench decode failed"
-    log({"bench": "rs_decode_2err", "codewords_per_s": rs_dec_cws,
-         "path": "pallas" if rs.pallas_dec is not None else "xla"})
-    if rs.pallas_dec is not None:
-        # XLA A/B row (same inputs, same contract)
-        dt = time_fn(lambda a, b: rs._decode_plain(a, b), dj, pj)
-        log({"bench": "rs_decode_2err_xla", "codewords_per_s": BATCH / dt})
+    log({"bench": "rs_decode_2err", "codewords_per_s": rs_dec_cws})
 
     # ---------------- RS encode ----------------
     dt = time_fn(lambda a: rs._encode(a), jax.device_put(data))
@@ -185,31 +176,26 @@ def main():
     cnts = np.full(BATCH, 32, dtype=np.int32)
     ej, cj = jax.device_put(posb), jax.device_put(cnts)
     erj = jax.device_put(eras)
-    # rs.decode dispatches to the fused kernel's erasure path on TPU
     dt = time_fn(lambda a, b, e, c: rs.decode(a, b, erasures=(e, c)),
                  erj, pj, ej, cj)
-    log({"bench": "rs_erasure_32", "codewords_per_s": BATCH / dt,
-         "path": "pallas" if rs.pallas_dec is not None else "xla"})
+    log({"bench": "rs_erasure_32", "codewords_per_s": BATCH / dt})
 
     # ---------------- RS external-syndrome decode ----------------
     s_norm = np.asarray(rs._syndrome(dj, pj))
     s_log = np.asarray(jax.device_get(rs.gf.exp2log)).astype(np.int32)[s_norm]
     sj = jax.device_put(s_log)
     dt = time_fn(lambda a, b, s: rs.decode(a, b, ext_syndrome=s), dj, pj, sj)
-    log({"bench": "rs_ext_syndrome", "codewords_per_s": BATCH / dt,
-         "path": "pallas" if rs.pallas_dec is not None else "xla"})
+    log({"bench": "rs_ext_syndrome", "codewords_per_s": BATCH / dt})
 
     # ---------------- BCH(15,5) batch ----------------
-    # Production batch (131072): the rounds-1-4 B=10240 rows sat in
-    # latency-bound territory where host contention moved the number by
-    # >20% between driver captures (VERDICT r4 weak #1).
+    # Production batch (131072): at B=10240 the row is dominated by
+    # fixed per-call costs.
     bch = pp.create(pp.bch_config_default())._bch
     bch_n = BATCH
-    # draw-stream compatibility: rounds 1-4 drew exactly 10240 words
-    # from `rng` here, and every LATER row's random instance depends
-    # on the stream position (the 8192B row is gated by its single
-    # worst codeword, so a shifted draw moved it 505 -> 306 Mbit/s
-    # with identical code).  Keep the historical 10240 draws and top
+    # draw-stream compatibility: earlier versions drew exactly 10240
+    # words from `rng` here, and every LATER row's random instance
+    # depends on the stream position (the 8192B row is gated by its
+    # single worst codeword).  Keep the historical 10240 draws and top
     # up to the production batch from a dedicated generator.
     words10 = rng.integers(0, 1 << 15, (10240,), dtype=np.int32)
     brng = np.random.default_rng(4321)
@@ -224,8 +210,8 @@ def main():
     log({"bench": "bch15_decode", "codewords_per_s": bch_cws, "batch": bch_n})
 
     # ---------------- LDPC rate-1/2 n=128B hard decode ----------------
-    from libpoporon_tpu.config import LdpcConfig, LdpcRate
-    from libpoporon_tpu.models.ldpc import LDPCCodec
+    from libpoporon_jax.config import LdpcConfig, LdpcRate
+    from libpoporon_jax.models.ldpc import LDPCCodec
 
     lc = LDPCCodec(LdpcConfig(block_size=128, rate=LdpcRate.RATE_1_2))
     info = rng.integers(0, 256, (LDPC_BATCH, lc.info_bytes), dtype=np.uint8)
@@ -239,28 +225,17 @@ def main():
         (1 << (7 - (fl.reshape(-1) % 8))).astype(np.uint8),
     )
     cwj = jax.device_put(cw)
-    pal = lc.pallas_kern is not None
     dt = time_fn(lambda c: lc._decode_hard(c, 50), cwj, warmup=2, iters=3)
     log({"bench": "ldpc_r12_128B_hard_4err_fixed", "codewords_per_s": LDPC_BATCH / dt,
-         "mbit_per_s": LDPC_BATCH / dt * lc.codeword_bits / 1e6,
-         "path": "pallas" if pal else "xla"})
+         "mbit_per_s": LDPC_BATCH / dt * lc.codeword_bits / 1e6})
     dt = time_fn(lambda c: lc.decode_hard_adaptive(c, 50), cwj, warmup=2, iters=3)
     ldpc_cws = LDPC_BATCH / dt
     ldpc_mbits = ldpc_cws * lc.codeword_bits / 1e6
     log({"bench": "ldpc_r12_128B_hard_4err", "codewords_per_s": ldpc_cws,
-         "mbit_per_s": ldpc_mbits, "path": "pallas" if pal else "xla"})
-    if pal:
-        # XLA A/B row: same adaptive cascade, Pallas kernel disabled
-        lc_x = LDPCCodec(LdpcConfig(block_size=128, rate=LdpcRate.RATE_1_2,
-                                    use_pallas="off"))
-        dt = time_fn(lambda c: lc_x.decode_hard_adaptive(c, 50), cwj,
-                     warmup=2, iters=3)
-        log({"bench": "ldpc_r12_128B_hard_4err_xla",
-             "codewords_per_s": LDPC_BATCH / dt,
-             "mbit_per_s": LDPC_BATCH / dt * lc.codeword_bits / 1e6})
+         "mbit_per_s": ldpc_mbits})
 
     # ---------------- LDPC soft decode (~1e-2 channel BER) ----------------
-    from libpoporon_tpu.utils import bits as bitutils
+    from libpoporon_jax.utils import bits as bitutils
 
     cb = bitutils.unpack_np(cw, lc.codeword_bits)
     clean = np.where(cb == 1, -90.0, 90.0)
@@ -271,13 +246,13 @@ def main():
     dt = time_fn(lambda l: lc.decode_soft_adaptive(l, 50), lj, warmup=2, iters=3)
     log({"bench": "ldpc_r12_128B_soft_1e-2ber", "codewords_per_s": LDPC_BATCH / dt,
          "mbit_per_s": LDPC_BATCH / dt * lc.codeword_bits / 1e6,
-         "channel_ber": round(ber, 5), "path": "pallas" if pal else "xla"})
+         "channel_ber": round(ber, 5)})
 
     # ---------------- shipped presets (poporon.c:286-294) ----------------
     # default = both interleavers + soft-capable (the path users get
     # from ldpc_config_default); burst = cw=7 + both interleavers;
     # plus one QC-matrix row.  Facade-level decode, hard inputs.
-    from libpoporon_tpu.config import LdpcMatrixType
+    from libpoporon_jax.config import LdpcMatrixType
 
     # dedicated generator: consuming `rng` here would shift the draws
     # (error patterns, hence iteration tails) of every later row and
@@ -314,15 +289,12 @@ def main():
         dt = time_fn(run, bj, pj2, warmup=2, iters=3)
         cbits = fac._ldpc.codeword_bits
         log({"bench": name, "codewords_per_s": preset_batch / dt,
-             "mbit_per_s": preset_batch / dt * cbits / 1e6,
-             "path": "pallas" if fac._ldpc.pallas_kern is not None
-             else "xla"})
+             "mbit_per_s": preset_batch / dt * cbits / 1e6})
 
-    # ---------------- LDPC big blocks (XLA path; Pallas is VMEM-gated) ----
+    # ---------------- LDPC big blocks ----------------
     # Drop earlier rows' device buffers first: the 8192B decode
-    # allocates multi-GB message tensors, and with the preceding
-    # batches still resident it measured 305 Mbit/s vs 505 in
-    # isolation on the same inputs (allocator pressure, not codec).
+    # allocates multi-GB message tensors, and the preceding batches
+    # would otherwise stay resident beside them.
     del dj, pj, erj, ej, cj, sj, wj, cwj, lj, bj, pj2
 
     for bs, rate, nb in ((1024, LdpcRate.RATE_1_2, 4096),
@@ -344,18 +316,17 @@ def main():
                      warmup=2, iters=2)
         log({"bench": f"ldpc_r{rate.ratio[0]}{rate.ratio[0]+rate.ratio[1]}_{bs}B_hard",
              "codewords_per_s": nb / dt,
-             "mbit_per_s": nb / dt * lcb.codeword_bits / 1e6,
-             "path": "pallas" if lcb.pallas_kern is not None else "xla"})
+             "mbit_per_s": nb / dt * lcb.codeword_bits / 1e6})
 
     # ---------------- reference C library baseline ----------------
     ref_bch = bench_reference_bch(words[:2048])
     if ref_bch:
         log({"bench": "reference_bch15_decode", "codewords_per_s": ref_bch,
-             "tpu_vs_ref": bch_cws / ref_bch})
+             "vs_ref": bch_cws / ref_bch})
     ref_ldpc = bench_reference_ldpc(cw[:256])
     if ref_ldpc:
         log({"bench": "reference_ldpc_hard_decode", "codewords_per_s": ref_ldpc,
-             "tpu_vs_ref": ldpc_cws / ref_ldpc})
+             "vs_ref": ldpc_cws / ref_ldpc})
     ref_cws = bench_reference_rs(corrupt, parity)
     vs = rs_dec_cws / ref_cws if ref_cws else 0.0
     if ref_cws:

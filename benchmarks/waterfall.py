@@ -43,11 +43,13 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
-    import jax
-    from libpoporon_tpu.config import LdpcConfig, LdpcRate
-    from libpoporon_tpu.models.ldpc import LDPCCodec
-    from libpoporon_tpu.utils import bits as bitutils
-    from libpoporon_tpu.utils.faults import awgn_llrs
+    from libpoporon_jax.config import LdpcConfig, LdpcRate
+    from libpoporon_jax.models.ldpc import LDPCCodec
+    from libpoporon_jax.utils import bits as bitutils
+    from libpoporon_jax.utils.faults import awgn_llrs
+    from libpoporon_jax.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     codec = LDPCCodec(
         LdpcConfig(block_size=args.block, rate=getattr(LdpcRate, RATES[args.rate]))

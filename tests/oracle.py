@@ -3,7 +3,7 @@
 This is the golden-compat harness (the moral equivalent of the
 reference's tests/fec_compat.c): the reference sources under
 /root/reference are compiled out-of-tree into a shared library and every
-codec in libpoporon_tpu is asserted byte-identical against it on shared
+codec in libpoporon_jax is asserted byte-identical against it on shared
 random vectors.  No reference code is copied into this repo.
 """
 

@@ -1,6 +1,6 @@
 """Version/buildtime (spec: reference tests/test_basic.c)."""
 
-import libpoporon_tpu as pp
+import libpoporon_jax as pp
 
 
 def test_version_id():

@@ -13,9 +13,9 @@ every m.
 import numpy as np
 import pytest
 
-import libpoporon_tpu as pp
-from libpoporon_tpu.models.bch import BCHCodec
-from libpoporon_tpu.ops.gf import GFError
+import libpoporon_jax as pp
+from libpoporon_jax.models.bch import BCHCodec
+from libpoporon_jax.ops.gf import GFError
 
 
 @pytest.fixture(scope="module")

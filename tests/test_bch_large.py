@@ -17,8 +17,8 @@ the m >= 12 coverage for the constructor's advertised [3, 16] range.
 import numpy as np
 import pytest
 
-import libpoporon_tpu as pp
-from libpoporon_tpu.models.bch import BCHCodec
+import libpoporon_jax as pp
+from libpoporon_jax.models.bch import BCHCodec
 
 CONFIGS = [
     pytest.param((7, 0x89, 3), id="m7-BCH127-t3"),

@@ -5,7 +5,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from libpoporon_tpu.utils import bits
+from libpoporon_jax.utils import bits
 
 
 @pytest.mark.parametrize("shape", [(3,), (2, 5), (4, 1)])
@@ -41,7 +41,7 @@ def test_pack_pads_partial_byte():
 
 
 def test_native_matches_numpy():
-    from libpoporon_tpu.utils import native
+    from libpoporon_jax.utils import native
     if not native.available():
         pytest.skip("native core unavailable")
     import ctypes as ct

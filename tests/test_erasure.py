@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from libpoporon_tpu import Erasure
-from libpoporon_tpu.erasure import positions_batch
+from libpoporon_jax import Erasure
+from libpoporon_jax.erasure import positions_batch
 
 
 def test_lifecycle():

@@ -4,8 +4,8 @@ test_codec.c, test_invalid.c)."""
 import numpy as np
 import pytest
 
-import libpoporon_tpu as pp
-from libpoporon_tpu.config import FecType, LdpcRate
+import libpoporon_jax as pp
+from libpoporon_jax.config import FecType, LdpcRate
 
 _CODECS = {}
 

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from libpoporon_tpu.ops.gf import GF, GFError
+from libpoporon_jax.ops.gf import GF, GFError
 
 import oracle
 

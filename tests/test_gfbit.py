@@ -6,8 +6,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from libpoporon_tpu.ops import gfbit
-from libpoporon_tpu.ops.gfint import gf_mul_const_np
+from libpoporon_jax.ops import gfbit
+from libpoporon_jax.ops.gfint import gf_mul_const_np
 
 FIELDS = [
     (4, 0x13),

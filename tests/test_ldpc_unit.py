@@ -4,8 +4,8 @@ resistance (spec: reference tests/test_ldpc.c)."""
 import numpy as np
 import pytest
 
-from libpoporon_tpu.config import LdpcConfig, LdpcMatrixType, LdpcRate
-from libpoporon_tpu.models.ldpc import (
+from libpoporon_jax.config import LdpcConfig, LdpcMatrixType, LdpcRate
+from libpoporon_jax.models.ldpc import (
     LDPCCodec,
     LdpcError,
     LdpcStructure,
@@ -158,7 +158,7 @@ class TestEncodeDecode:
         np.testing.assert_array_equal(out, cw)
 
     def test_soft_decode_flipped_llrs(self):
-        from libpoporon_tpu.utils import bits as bitutils
+        from libpoporon_jax.utils import bits as bitutils
         c = codec(block=64)
         rng = np.random.default_rng(2)
         info = rng.integers(0, 256, (4, c.info_bytes), dtype=np.uint8)
@@ -181,7 +181,7 @@ class TestEncodeDecode:
         # codeword_bits bits)
         il = np.asarray(c.interleave(cw))
         back = np.asarray(c.deinterleave(il))
-        from libpoporon_tpu.utils import bits as bitutils
+        from libpoporon_jax.utils import bits as bitutils
         np.testing.assert_array_equal(
             bitutils.unpack_np(back, c.codeword_bits),
             bitutils.unpack_np(cw, c.codeword_bits),
@@ -190,9 +190,9 @@ class TestEncodeDecode:
     def test_burst_resistance_comparison(self):
         """Burst-resistant preset corrects a burst the default may not
         (spirit of test_ldpc.c:447-507)."""
-        from libpoporon_tpu.config import ldpc_config_burst_resistant
+        from libpoporon_jax.config import ldpc_config_burst_resistant
         cfg = ldpc_config_burst_resistant(128, LdpcRate.RATE_1_2)
-        import libpoporon_tpu as pp
+        import libpoporon_jax as pp
         codec_b = pp.create(cfg)
         rng = np.random.default_rng(6)
         data = rng.integers(0, 256, (4, 128), dtype=np.uint8)
@@ -257,7 +257,7 @@ class TestAdaptive:
         """A plain decode_hard/decode_soft call with B % chunk != 0 must
         pad to a chunk multiple (keeping the fast-gather chunking) and
         return results bit-identical to a fully unchunked decode."""
-        from libpoporon_tpu.utils import bits as bitutils
+        from libpoporon_jax.utils import bits as bitutils
         c = codec(block=64)
         rng = np.random.default_rng(81)
         B = 53  # chunk=16 -> pad to 64, 4 chunks
@@ -286,7 +286,7 @@ class TestAdaptive:
             np.testing.assert_array_equal(r, g)
 
     def test_adaptive_soft_matches_plain(self):
-        from libpoporon_tpu.utils import bits as bitutils
+        from libpoporon_jax.utils import bits as bitutils
         c = codec(block=64)
         rng = np.random.default_rng(78)
         info = rng.integers(0, 256, (16, c.info_bytes), dtype=np.uint8)
@@ -326,8 +326,8 @@ class TestBigBlocks:
 class TestSoftBER:
     def test_awgn_1e2_ber_decode(self):
         """BASELINE config #5: soft LLR decode at ~1e-2 channel BER."""
-        from libpoporon_tpu.utils import bits as bitutils
-        from libpoporon_tpu.utils.faults import awgn_llrs
+        from libpoporon_jax.utils import bits as bitutils
+        from libpoporon_jax.utils.faults import awgn_llrs
         c = codec(block=128)
         rng = np.random.default_rng(9)
         B = 16

@@ -1,6 +1,6 @@
 """Native (C++) host-core vs pure-Python equivalence.
 
-The native library (libpoporon_tpu/native/core.cpp) accelerates
+The native library (libpoporon_jax/native/core.cpp) accelerates
 host-side structure construction; every entry point must be
 value-identical to the Python/NumPy implementation it replaces —
 these tests pin that contract directly (the oracle suite only covers
@@ -10,10 +10,10 @@ it transitively through whichever path `native.available()` selects).
 import numpy as np
 import pytest
 
-from libpoporon_tpu.utils import native
-from libpoporon_tpu.utils.rng import Xoshiro128pp
-from libpoporon_tpu.models import ldpc as ldpc_mod
-from libpoporon_tpu.config import LdpcConfig, LdpcMatrixType, LdpcRate
+from libpoporon_jax.utils import native
+from libpoporon_jax.utils.rng import Xoshiro128pp
+from libpoporon_jax.models import ldpc as ldpc_mod
+from libpoporon_jax.config import LdpcConfig, LdpcMatrixType, LdpcRate
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native core not built"

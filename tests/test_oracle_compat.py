@@ -11,9 +11,9 @@ pytestmark = pytest.mark.skipif(
     not oracle.available(), reason="reference oracle unavailable"
 )
 
-import libpoporon_tpu as pp
-from libpoporon_tpu.models.ldpc import get_structure
-from libpoporon_tpu.config import LdpcConfig, LdpcMatrixType, LdpcRate
+import libpoporon_jax as pp
+from libpoporon_jax.models.ldpc import get_structure
+from libpoporon_jax.config import LdpcConfig, LdpcMatrixType, LdpcRate
 
 
 # ===================================================================== RS
@@ -419,7 +419,7 @@ class TestLDPCCodec:
     @pytest.mark.parametrize("cfgkw", LDPC_CONFIGS[:4])
     def test_encode_bit_exact(self, cfgkw):
         cfg = _mk(**cfgkw)
-        from libpoporon_tpu.models.ldpc import LDPCCodec
+        from libpoporon_jax.models.ldpc import LDPCCodec
         c = LDPCCodec(cfg)
         ref = oracle.LDPC(
             cfgkw["block_size"], cfgkw["rate"],
@@ -436,7 +436,7 @@ class TestLDPCCodec:
     @pytest.mark.parametrize("nflip", [0, 1, 3, 8])
     def test_decode_hard_bit_exact(self, nflip):
         cfg = _mk(128, 1)
-        from libpoporon_tpu.models.ldpc import LDPCCodec
+        from libpoporon_jax.models.ldpc import LDPCCodec
         c = LDPCCodec(cfg)
         ref = oracle.LDPC(128, 1)
         rng = np.random.default_rng(nflip + 1)
@@ -461,7 +461,7 @@ class TestLDPCCodec:
         (_bp_loop_big: H_dense is None above ~512B): hard + soft,
         exact outputs AND iteration counts vs the reference."""
         cfg = _mk(1024, 1)
-        from libpoporon_tpu.models.ldpc import LDPCCodec
+        from libpoporon_jax.models.ldpc import LDPCCodec
         c = LDPCCodec(cfg)
         assert c.H_dense is None  # the big-code driver must be in play
         ref = oracle.LDPC(1024, 1)
@@ -481,7 +481,7 @@ class TestLDPCCodec:
             np.testing.assert_array_equal(out[b], rcw)
             assert int(iters[b]) == rit, f"b={b}"
         # soft: true channel LLRs with enough noise to need iterations
-        from libpoporon_tpu.utils import bits as bitutils
+        from libpoporon_jax.utils import bits as bitutils
         cb = bitutils.unpack_np(cw, c.codeword_bits)
         clean = np.where(cb == 1, -90.0, 90.0)
         noisy = clean + rng.normal(0, 35.0, clean.shape)
@@ -497,7 +497,7 @@ class TestLDPCCodec:
     def test_decode_hard_heavy_noise(self):
         """Non-converging inputs: best-effort output must match too."""
         cfg = _mk(32, 1)
-        from libpoporon_tpu.models.ldpc import LDPCCodec
+        from libpoporon_jax.models.ldpc import LDPCCodec
         c = LDPCCodec(cfg)
         ref = oracle.LDPC(32, 1)
         rng = np.random.default_rng(0)
@@ -513,7 +513,7 @@ class TestLDPCCodec:
     @pytest.mark.parametrize("nflip", [0, 3, 10])
     def test_decode_soft_bit_exact(self, nflip):
         cfg = _mk(64, 1)
-        from libpoporon_tpu.models.ldpc import LDPCCodec
+        from libpoporon_jax.models.ldpc import LDPCCodec
         c = LDPCCodec(cfg)
         ref = oracle.LDPC(64, 1)
         rng = np.random.default_rng(nflip + 21)
@@ -521,7 +521,7 @@ class TestLDPCCodec:
         info = rng.integers(0, 256, (B, c.info_bytes), dtype=np.uint8)
         parity = np.asarray(c.encode(info))
         cw = np.concatenate([info, parity], axis=1)
-        import libpoporon_tpu.utils.bits as bits
+        import libpoporon_jax.utils.bits as bits
         cb = bits.unpack_np(cw, c.codeword_bits)
         llr = np.where(cb == 1, -100, 100).astype(np.int8)
         for b in range(B):
@@ -542,8 +542,8 @@ class TestLDPCCodec:
         deinterleave path (ldpc.c:1043-1049), which the hard+inner test
         cannot reach."""
         cfg = _mk(64, 1, inner=True)
-        from libpoporon_tpu.models.ldpc import LDPCCodec
-        import libpoporon_tpu.utils.bits as bits
+        from libpoporon_jax.models.ldpc import LDPCCodec
+        import libpoporon_jax.utils.bits as bits
         c = LDPCCodec(cfg)
         ref = oracle.LDPC(64, 1, inner=True)
         rng = np.random.default_rng(12)
@@ -574,7 +574,7 @@ class TestLDPCCodec:
         straggler compaction, redundant-slot writes, and best-effort
         non-convergence outputs at scale."""
         cfg = _mk(32, 1)
-        from libpoporon_tpu.models.ldpc import LDPCCodec
+        from libpoporon_jax.models.ldpc import LDPCCodec
         c = LDPCCodec(cfg)
         ref = oracle.LDPC(32, 1)
         rng = np.random.default_rng(77)
@@ -607,7 +607,7 @@ class TestLDPCCodec:
 
     def test_decode_hard_with_inner_interleave(self):
         cfg = _mk(64, 1, inner=True)
-        from libpoporon_tpu.models.ldpc import LDPCCodec
+        from libpoporon_jax.models.ldpc import LDPCCodec
         c = LDPCCodec(cfg)
         ref = oracle.LDPC(64, 1, inner=True)
         rng = np.random.default_rng(8)
@@ -670,7 +670,7 @@ class TestLDPCFacade:
 class TestMoreCoverage:
     def test_qc_ldpc_decode_bit_exact(self):
         cfg = _mk(64, 1, matrix_type=2)
-        from libpoporon_tpu.models.ldpc import LDPCCodec
+        from libpoporon_jax.models.ldpc import LDPCCodec
         c = LDPCCodec(cfg)
         ref = oracle.LDPC(64, 1, matrix_type=2)
         rng = np.random.default_rng(31)
@@ -693,12 +693,12 @@ class TestMoreCoverage:
     def test_facade_soft_llr_bit_exact(self):
         """Facade soft path with bound LLRs vs the reference config-bound
         soft_llr (decode.c:509-511)."""
-        import libpoporon_tpu.utils.bits as bits
+        import libpoporon_jax.utils.bits as bits
         block, rate = 64, 1
         cfg = LdpcConfig(block_size=block, rate=LdpcRate(rate),
                          use_soft_decode=True)
         codec = pp.create(cfg)
-        from libpoporon_tpu.models.ldpc import LDPCCodec
+        from libpoporon_jax.models.ldpc import LDPCCodec
         c = codec._ldpc
         rng = np.random.default_rng(5)
         data = rng.integers(0, 256, (2, block), dtype=np.uint8)

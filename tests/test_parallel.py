@@ -5,10 +5,10 @@ import pytest
 
 import jax
 
-import libpoporon_tpu as pp
-from libpoporon_tpu.config import LdpcConfig, LdpcRate
-from libpoporon_tpu.parallel import ShardedCodec, batch_mesh
-from libpoporon_tpu.parallel.mesh import shard_batch
+import libpoporon_jax as pp
+from libpoporon_jax.config import LdpcConfig, LdpcRate
+from libpoporon_jax.parallel import ShardedCodec, batch_mesh
+from libpoporon_jax.parallel.mesh import shard_batch
 
 
 needs_multi = pytest.mark.skipif(
@@ -85,9 +85,8 @@ def test_stats_axis_name_contract():
     import jax.numpy as jnp
     from functools import partial
     from jax.sharding import PartitionSpec as P
-    from jax.experimental.shard_map import shard_map
-    from libpoporon_tpu.parallel import ber_stats, iteration_histogram
-    from libpoporon_tpu.parallel.mesh import batch_mesh
+    from libpoporon_jax.parallel import ber_stats, iteration_histogram
+    from libpoporon_jax.parallel.mesh import batch_mesh
 
     mesh = batch_mesh()
     ref = np.zeros((16, 8), np.int32)
@@ -99,7 +98,7 @@ def test_stats_axis_name_contract():
     assert int(st["errors"]) == 16 and int(st["total"]) == 128
 
     # psum mode inside shard_map: per-shard errors sum to the global 16
-    @partial(shard_map, mesh=mesh, in_specs=(P("batch"), P("batch")),
+    @partial(jax.shard_map, mesh=mesh, in_specs=(P("batch"), P("batch")),
              out_specs=P())
     def global_stats(r, o):
         s = ber_stats(r, o, axis_name="batch")
@@ -109,7 +108,7 @@ def test_stats_axis_name_contract():
     assert g[0] == 16 and g[1] == 128
 
     # wrong axis name: raises (NameError from jax), never silently local
-    @partial(shard_map, mesh=mesh, in_specs=(P("batch"), P("batch")),
+    @partial(jax.shard_map, mesh=mesh, in_specs=(P("batch"), P("batch")),
              out_specs=P())
     def wrong_axis(r, o):
         s = ber_stats(r, o, axis_name="no_such_axis")
@@ -123,7 +122,7 @@ def test_stats_axis_name_contract():
     h = np.asarray(iteration_histogram(it, 4, axis_name=None))
     assert h.sum() == 16
 
-    @partial(shard_map, mesh=mesh, in_specs=(P("batch"),), out_specs=P())
+    @partial(jax.shard_map, mesh=mesh, in_specs=(P("batch"),), out_specs=P())
     def ghist(i):
         return iteration_histogram(i, 4, axis_name="batch")
 

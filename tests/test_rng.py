@@ -4,7 +4,7 @@
 import numpy as np
 import pytest
 
-from libpoporon_tpu.utils.rng import Xoshiro128pp
+from libpoporon_jax.utils.rng import Xoshiro128pp
 
 import oracle
 

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-import libpoporon_tpu as pp
-from libpoporon_tpu.config import LdpcRate
-from libpoporon_tpu.stream import StreamCodec
+import libpoporon_jax as pp
+from libpoporon_jax.config import LdpcRate
+from libpoporon_jax.stream import StreamCodec
 
 
 @pytest.mark.parametrize("n", [0, 1, 100, 223, 5000])
@@ -35,7 +35,7 @@ def test_rs_stream_corrects_errors():
 def test_ldpc_stream_roundtrip():
     cfg = pp.LdpcConfig(block_size=64, rate=LdpcRate.RATE_1_2)
     sc = StreamCodec(pp.create(cfg))
-    payload = b"hello poporon tpu" * 40
+    payload = b"hello poporon jax" * 40
     blob = sc.encode_stream(payload)
     out, stats = sc.decode_stream(blob)
     assert out == payload
